@@ -1,28 +1,34 @@
 """Example: batched JPEG decode feeding an on-device model, no host copies.
 
-The dominant TPU use case for a decode engine is the input pipeline of a
-training/serving job: bytes arrive on the host, pixels are consumed on the
+The dominant accelerator use case for a decode engine is the input pipeline
+of a training/serving job: bytes arrive on the host, pixels are consumed on the
 device.  ``BatchDecoder`` keeps decoded RGB device-resident, so the model
 step below consumes ``rgb_batch`` directly — the only host->device traffic
 is the sparse coefficient wire (~0.35 B/px), and nothing comes back except
 the model output.
 
-Run:  python examples/serving_pipeline.py [--platform cpu]
+Run:  python examples/serving_pipeline.py [--platform cpu] [--glob PATTERN]
+
+Without ``--glob`` it decodes the six baseline photos of the seeded corpus
+(``tools/corpus.py``).
 """
 
 import argparse
 import glob
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--platform", default=None,
                     help="force a jax platform (e.g. cpu)")
-    ap.add_argument("--glob", default="/root/reference/images/img*.jpg")
+    ap.add_argument("--glob", default=None,
+                    help="JPEG files to decode (default: seeded corpus)")
     args = ap.parse_args()
 
     import jax
@@ -45,7 +51,12 @@ def main():
                        [-0.4, 0.2, 0.8]], jnp.float32)
         return feats @ w                               # (B, 3) embeddings
 
-    paths = sorted(glob.glob(args.glob))
+    if args.glob:
+        paths = sorted(glob.glob(args.glob))
+    else:
+        from tools import corpus
+
+        paths = [corpus.path(n) for n in corpus.BASELINE]
     blobs = [open(p, "rb").read() for p in paths]
     bd = BatchDecoder(idct="fast", upsample="fancy")
 

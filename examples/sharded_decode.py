@@ -2,9 +2,9 @@
 
 Restart segments are JPEG's native unit of parallelism (DC predictors
 reset at every RSTn marker), so a single image's entropy decode shards
-across chips with zero communication in the hot loop; images shard over
+across devices with zero communication in the hot loop; images shard over
 the 'data' axis.  This example runs on a virtual CPU device pool so it
-works anywhere; on a real slice the same code runs over ICI.
+works anywhere; on several GPUs the same code runs over NVLink.
 
 Run:  python examples/sharded_decode.py [n_devices]
 """
@@ -12,7 +12,8 @@ Run:  python examples/sharded_decode.py [n_devices]
 import os
 import sys
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 8
 import re  # noqa: E402
@@ -36,10 +37,11 @@ from jpeg_decoder_tpu.io import parser  # noqa: E402
 from jpeg_decoder_tpu.ops import scan_prep  # noqa: E402
 from jpeg_decoder_tpu.parallel import mesh as mesh_mod  # noqa: E402
 from jpeg_decoder_tpu.parallel import sharded  # noqa: E402
+from tools import corpus  # noqa: E402
 
 
 def main():
-    path = "/root/reference/images/img4.jpg"  # DRI=100 -> 50 segments
+    path = corpus.path("img4.jpg")  # DRI=100 -> 50 segments
     hdr = parser.parse_file(path)
     scan = hdr.scans[0]
     print(f"{path}: {hdr.width}x{hdr.height}, "
@@ -63,8 +65,7 @@ def main():
 
     # The blob-level API: host does parse+unstuff only; everything else
     # (entropy, assembly, pixels) is one device program per geometry group.
-    blobs = [open(f"/root/reference/images/img{s}.jpg", "rb").read()
-             for s in ("", "2", "4")]
+    blobs = [corpus.read(n) for n in ("img.jpg", "img2.jpg", "img4.jpg")]
     items = sharded.decode_batch_sharded(blobs, mesh, idct="fast",
                                          upsample="nn")
     for it, b in zip(items, blobs):

@@ -1,9 +1,10 @@
-"""jpeg_decoder_tpu — a TPU-native JPEG decode engine (JAX/XLA/Pallas).
+"""jpeg_decoder_tpu — an accelerator JPEG decode engine in JAX/XLA.
 
 Brand-new framework with the capabilities of the reference C++ decoder
-(aswanthabam/JPEG_Decoder), re-architected TPU-first: host-side marker/header
-parsing and byte-unstuffing, table-driven Huffman entropy decode (host C++ or
-on-device Pallas, segment-parallel over restart intervals), and fused
+(aswanthabam/JPEG_Decoder), re-architected for accelerators: host-side
+marker/header parsing and byte-unstuffing, table-driven Huffman entropy
+decode (host C++ or on-device lanes, parallel over restart intervals or
+host-found MCU starts), and fused
 dequantize + IDCT + chroma-upsample + YCbCr->RGB device kernels, sharded over
 {images x segments} meshes via shard_map.
 """

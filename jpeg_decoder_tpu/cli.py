@@ -22,7 +22,7 @@ import time
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="jpeg_decoder_tpu",
-        description="TPU-native JPEG decoder (JAX/XLA/Pallas)",
+        description="Accelerator JPEG decoder (JAX/XLA)",
     )
     p.add_argument("inputs", nargs="+", help="input JPEG file(s)")
     p.add_argument("-o", "--output", default=None,
@@ -30,13 +30,14 @@ def build_argparser() -> argparse.ArgumentParser:
                         "default: alongside input as .png")
     p.add_argument("--format", choices=["png", "bmp", "ppm"], default="png")
     p.add_argument("--entropy", default="auto",
-                   choices=["auto", "python", "native", "speculative", "hybrid",
-                            "jax", "pallas"],
+                   choices=["auto", "python", "native", "speculative",
+                            "hybrid", "jax"],
                    help="entropy-decode backend")
     p.add_argument("--idct", default="fast",
-                   choices=["exact", "fast", "kron", "pallas"],
+                   choices=["exact", "fast", "kron"],
                    help="'exact' matches the reference C++ bit-for-bit; "
-                        "'fast' uses MXU matmuls")
+                        "'fast' and 'kron' use float32 matrix products "
+                        "(within 1 count of 'exact')")
     p.add_argument("--upsample", default="nn", choices=["nn", "fancy"],
                    help="chroma upsampling: 'nn' matches the reference; "
                         "'fancy' is libjpeg-style triangular (higher quality)")
@@ -51,7 +52,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also dump dequantized coefficient planes as "
                         "PREFIX.<image>.comp<i>.npy")
     p.add_argument("--platform", default=None,
-                   help="force a jax platform (e.g. cpu, tpu)")
+                   help="force a jax platform (e.g. cpu, gpu)")
     p.add_argument("-v", "--verbose", action="count", default=0,
                    help="-v: summary; -vv: full header narration "
                         "(tables, scans) like the reference's verbose dumps")
@@ -86,6 +87,9 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+    from .utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from . import decode
     from .io import writers

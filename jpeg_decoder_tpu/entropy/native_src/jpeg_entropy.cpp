@@ -1,6 +1,6 @@
 // Native host entropy decoder for jpeg_decoder_tpu.
 //
-// TPU-native equivalent of the reference's sequential Huffman stage
+// Host equivalent of the reference's sequential Huffman stage
 // (jpeg.cpp:300-446), redesigned:
 //   * O(1) decode: peek 16 bits -> flat 2^16 LUT -> (symbol, length), instead
 //     of the reference's per-bit linear scan (jpeg.cpp:300-320).
@@ -8,7 +8,7 @@
 //     predictors reset (jpeg.cpp:419-425), so segments decode independently
 //     across std::thread workers.
 //   * Emits scan-order natural-layout int32 blocks — the same coefficient
-//     plane the Python and Pallas backends emit (swappable stage boundary).
+//     plane the Python and device backends emit (swappable stage boundary).
 //
 // Exposed as a C ABI for ctypes.  No Python.h dependency; the GIL is
 // released for the whole call.
@@ -467,8 +467,8 @@ int decode_segment(const ScanJob& job, int seg) {
 //
 // This is the decode-domain analogue of the subsequence-parallel scheme in
 // the GPU JPEG literature, applied to host threads here and structured so
-// the same trace/splice representation can later drive a TPU lane-parallel
-// variant.
+// the same trace/splice representation drives the device lane-parallel
+// variant (ops/entropy_spec.py).
 // ---------------------------------------------------------------------------
 
 struct SpecChunk {

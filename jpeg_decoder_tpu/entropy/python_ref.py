@@ -10,8 +10,8 @@ reference's per-bit linear scan (jpeg.cpp:300-320), i.e. the same algorithm
 the device kernel runs.
 
 It is intentionally slow (pure Python); the production host path is the C++
-backend in :mod:`jpeg_decoder_tpu.entropy.native`, and the device path is the
-Pallas kernel in :mod:`jpeg_decoder_tpu.ops.entropy_pallas`.  All three emit
+backend in :mod:`jpeg_decoder_tpu.entropy.native`, and the device paths are
+the lane kernels in :mod:`jpeg_decoder_tpu.ops.entropy_flat`.  All three emit
 identical coefficient planes, so backends are swappable (SURVEY.md §7).
 """
 

@@ -1,7 +1,7 @@
 """Canonical Huffman code generation and flat decode-LUT construction.
 
 The reference decodes one bit at a time and linearly scans all codes of the
-current length (jpeg.cpp:300-320 — the innermost hot loop).  The TPU build
+current length (jpeg.cpp:300-320 — the innermost hot loop).  This decoder
 replaces that with an O(1) probe: peek the next 16 bits, index a flat 2^16
 lookup table, obtain ``(symbol, code_length)`` in one load.  The LUT is built
 once per DHT table on the host and uploaded to device memory.

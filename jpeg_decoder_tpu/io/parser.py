@@ -1,6 +1,6 @@
 """Host-side JPEG syntax parser: markers, headers, and entropy-segment prep.
 
-This is the TPU-build equivalent of reference layers L1+L2 (file.hpp +
+This is this decoder's equivalent of reference layers L1+L2 (file.hpp +
 jpeg.cpp:37-298, 826-907).  Two responsibilities:
 
 1. Marker/header parsing — a straightforward offset walk over the byte buffer
@@ -51,7 +51,7 @@ from ..types import (
 )
 
 # SOF markers we accept -> (progressive, arithmetic).  The reference
-# accepts only 0xC0 and hard-exits on 0xC2 (jpeg.cpp:69-73); the TPU build
+# accepts only 0xC0 and hard-exits on 0xC2 (jpeg.cpp:69-73); this decoder
 # decodes progressive and arithmetic-coded (SOF9/SOF10) frames too.
 _SOF_SUPPORTED = {M_SOF0: (False, False), M_SOF1: (False, False),
                   M_SOF2: (True, False), M_SOF9: (False, True),

@@ -51,7 +51,12 @@ def write_png(path, rgb: np.ndarray) -> None:
     """Write PNG via PIL (format forced: PIL would otherwise infer a
     LOSSY format from extensions like .jpg, silently degrading the
     decoder's output)."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"writing {path}: PNG output needs Pillow, which is not "
+            f"installed; write .bmp, .ppm or .npy instead") from e
 
     Image.fromarray(np.asarray(rgb, dtype=np.uint8), "RGB").save(
         path, format="PNG")

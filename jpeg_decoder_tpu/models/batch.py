@@ -6,9 +6,9 @@ and (3) dispatching ONE fused device program per group — scan blocks are
 shipped verbatim and plane assembly/dequant/IDCT/upsample/color all happen
 on device, vmapped over the batch.
 
-Decoded RGB stays device-resident by default: the dominant TPU use case is
-feeding decoded images straight into an ML input pipeline on the same chips;
-fetch to host only when asked.
+Decoded RGB stays device-resident by default: the dominant accelerator use
+case is feeding decoded images straight into an ML input pipeline on the
+same device; fetch to host only when asked.
 """
 
 from __future__ import annotations
@@ -373,6 +373,14 @@ class BatchItem:
     rgb_batch: jax.Array | None  # (B, H, W, 3) uint8 group output (device)
     batch_index: int        # this image's row in rgb_batch
     error: Exception | None = None  # per-image failure isolation
+    # decode_batch_sharded: the device route that decoded this image
+    # ("hybrid", "hybrid-dyn", "lockstep", "spec", "progressive"), or
+    # "host" / "host-row" when it fell back to host entropy decode.
+    route: str | None = None
+    # decode_batch_sharded(keep_planes=True): the quantized coefficient
+    # planes (rows, cols, 64) per component, as the device route decoded
+    # them; None on host routes.
+    planes: tuple | None = None
 
     @property
     def ok(self) -> bool:
@@ -381,11 +389,10 @@ class BatchItem:
     @property
     def rgb(self) -> jax.Array:
         """This image's (H, W, 3) RGB.  Materialized lazily: slicing a
-        device array dispatches a program, which is cheap locally but
-        costly per-item through remote-TPU tunnels — batch consumers should
-        use ``rgb_batch`` directly (its rows may carry geometry-bucket
-        padding beyond (header.height, header.width); this crop removes
-        it)."""
+        device array dispatches one small program per item — batch
+        consumers should use ``rgb_batch`` directly (its rows may carry
+        geometry-bucket padding beyond (header.height, header.width); this
+        crop removes it)."""
         row = self.rgb_batch[self.batch_index]
         if (self.header is not None
                 and row.shape[:2] != (self.header.height,

@@ -15,7 +15,7 @@ every lane:
   uint32 carries (``cur``/``nxt``) refilled by at most one gather per
   symbol (a symbol consumes <= 27 bits), instead of two dynamic word
   gathers per peek (the C++ host decoder measured +14% from the same
-  restructuring; on TPU it halves the dominant gather count).
+  restructuring; on device it halves the dominant gather count).
 * **One merged LUT.**  DC and AC tables for all components are stacked
   into a single ``(2 * n_comps * 65536,)`` table; the per-symbol probe is
   one gather with a computed row offset — no per-table branching.
@@ -276,8 +276,8 @@ def decode_flat(words, base_bits, nblocks, bit_limits, luts, *,
 # ---------------------------------------------------------------------------
 #
 # Both earlier kernels pay for coefficient STORES inside the loop: the
-# flat loop's per-lane scatter costs per-op overhead every iteration
-# (measured 16x slower than lockstep at 2000 lanes), and the lockstep
+# flat loop's per-lane scatter costs per-op overhead every iteration, and
+# the lockstep
 # kernel's uniform-index commits force all lanes through block slot b
 # together — sum-over-slots of the max-over-lanes block symbol count,
 # measured ~3.5x the balanced ideal trip count on the corpus.
@@ -387,14 +387,14 @@ def decode_emit(words, base_bits, nblocks, luts, lut_base=None, *,
 # Block-lockstep variant: every store is a uniform-index update
 # ---------------------------------------------------------------------------
 #
-# TPU scatters with per-lane indices measured 55-860 us/iteration at 800
-# lanes (tools/entropy_ablation.py) — the dominant cost of the flat loop.
+# Scatters with per-lane indices inside the loop body are what the flat
+# loop pays for every symbol (tools/entropy_ablation.py measures them).
 # In block-lockstep, all lanes work on the same block slot b at once, so
 # the block commit, the DC-predictor update and the MCU-trace record all
 # happen at indices that are UNIFORM scalars across lanes — each lowers to
 # an in-place dynamic_update_slice instead of a scatter.  The price is
 # block-granular idling (a lane waits for the slowest lane's symbol count
-# within each block), which measures far cheaper than the scatters.
+# within each block).
 
 
 @functools.partial(

@@ -1,15 +1,24 @@
 """Device pixel pipeline: dequantize -> 8x8 IDCT -> upsample + YCbCr->RGB.
 
-Two IDCT modes:
+IDCT modes:
 
 * ``exact`` — reproduces the reference's AAN float butterfly with int32
   truncating stores between the column and row passes (jpeg.cpp:594-753), so
-  final pixels are bit-exact with the reference decoder.  Vectorized over
-  blocks on the VPU; all ops are IEEE f32 adds/muls in the same order as the
-  C++ source.
+  final pixels are bit-exact with the reference decoder.  Elementwise over
+  blocks; all ops are IEEE f32 adds/muls in the same order as the C++
+  source.
 * ``fast`` — the orthonormal 2-D IDCT as two 8x8 contractions
-  (``M @ X @ M^T``), batched over all blocks on the MXU.  Differs from
-  ``exact`` only in last-bit rounding; conformance tests bound the deviation.
+  (``M @ X @ M^T``), batched over all blocks as matrix products.
+* ``kron`` — dequantize + IDCT fused into ONE ``(N, 64) @ (64, 64)``
+  product with the Kronecker basis ``M (x) M``.
+
+``fast`` and ``kron`` ask for ``MATMUL_PRECISION`` (``HIGHEST``): a float32
+product may otherwise run in TF32 on a GPU, which keeps ~11 significant
+bits, while dequantized coefficients reach the thousands — the rounding
+error would then exceed one count.  In full float32 both round the true
+(float64) transform once, so they stay within +-1 count of it, the bound
+tests/test_pixel.py asserts.  ``exact`` truncates after each 1-D pass as
+the reference does and sits within 3 counts of the true transform.
 
 Chroma upsampling: the reference does fused nearest-neighbor upsampling from
 the MCU's own chroma block (jpeg.cpp:517-520).  For sampling factors in
@@ -50,6 +59,9 @@ for _p in range(8):
         a = np.sqrt(1.0 / 8.0) if _u == 0 else 0.5
         IDCT_M[_p, _u] = a * np.cos((2 * _p + 1) * _u * np.pi / 16.0)
 IDCT_M_F32 = IDCT_M.astype(np.float32)
+
+#: Precision of the float32 IDCT products (module docstring).
+MATMUL_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def dequantize(coefs: jnp.ndarray, qtable: jnp.ndarray) -> jnp.ndarray:
@@ -133,17 +145,40 @@ def idct_exact(blocks: jnp.ndarray) -> jnp.ndarray:
 
 
 def idct_fast(blocks: jnp.ndarray) -> jnp.ndarray:
-    """MXU-batched orthonormal IDCT: out = M @ X @ M^T, rounded to int32.
+    """Batched orthonormal IDCT: out = M @ X @ M^T, rounded to int32.
 
-    Contracted as two dense matmuls over all blocks at once so XLA tiles the
-    work onto the MXU; accuracy is within +-1 of ``idct_exact`` (asserted in
-    tests/test_pixel.py).
+    Contracted as two dense float32 products over all blocks at once, at
+    ``MATMUL_PRECISION`` (module docstring); within +-1 count of the
+    float64 transform (asserted in tests/test_pixel.py).
     """
     m = jnp.asarray(IDCT_M_F32)
     x = blocks.astype(jnp.float32)
     y = jnp.einsum("pu,...uv,qv->...pq", m, x, m,
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32,
+                   precision=MATMUL_PRECISION)
     return jnp.round(y).astype(jnp.int32)
+
+
+#: (64, 64) Kronecker IDCT basis: KRON[p*8+q, u*8+v] = M[p,u] * M[q,v], so
+#: vec(M X M^T) = KRON @ vec(X) for row-major 8x8 blocks.
+IDCT_KRON = np.kron(IDCT_M, IDCT_M).astype(np.float32)
+
+
+def idct_kron(blocks: jnp.ndarray, qtable: jnp.ndarray) -> jnp.ndarray:
+    """Fused dequantize + IDCT as one (N, 64) @ (64, 64) float32 product.
+
+    blocks: (N, 64) int32 quantized coefficients (natural order).
+    qtable: (64,) int32.  Returns (N, 64) int32 pixel-domain samples.
+    Four times the multiply-adds of the separable form in one dense
+    product with contraction 64; XLA fuses the dequantize into the
+    product's operand.  ``MATMUL_PRECISION`` keeps it within +-1 count of
+    the float64 transform (module docstring).
+    """
+    deq = (blocks * qtable.astype(jnp.int32)).astype(jnp.float32)
+    out = jnp.dot(deq, jnp.asarray(IDCT_KRON).T,
+                  preferred_element_type=jnp.float32,
+                  precision=MATMUL_PRECISION)
+    return jnp.round(out).astype(jnp.int32)
 
 
 def blocks_to_plane(plane: jnp.ndarray) -> jnp.ndarray:
@@ -338,7 +373,8 @@ def pixel_pipeline_impl(planes, qtables, *, height: int, width: int,
       height/width: output crop.
       samplings: tuple of (v_repeat, h_repeat) per component — the
         upsampling factors h_max//h_c, v_max//v_c.
-      idct: "exact" (bit-exact vs reference) or "fast" (MXU matmul).
+      idct: "exact" (bit-exact vs reference), "fast" (separable matrix
+        products) or "kron" (fused dequantize + Kronecker product).
       color: source colorspace — "auto" (by component count), "gray",
         "ycbcr", "rgb" (stored as-is), "ycck", or "cmyk".
       out_cmyk: for 4-component sources, return the (H, W, 4) CMYK plane
@@ -353,29 +389,12 @@ def pixel_pipeline_impl(planes, qtables, *, height: int, width: int,
 
     Returns (height, width, 3) uint8 RGB (or (H, W, 4) CMYK).
     """
-    if idct == "pallas":
-        import jax as _jax
-
-        if _jax.default_backend() != "tpu":
-            import logging
-
-            logging.getLogger(__name__).info(
-                "idct='pallas' is TPU-only; substituting the identical-"
-                "arithmetic XLA 'kron' form on backend %r",
-                _jax.default_backend())
-            idct = "kron"  # Pallas IDCT is TPU-only; same arithmetic
     pix = []
     for plane, q, (vy, vx) in zip(planes, qtables, samplings):
         rows, cols = plane.shape[0], plane.shape[1]
-        if idct in ("kron", "pallas"):
-            # Fused dequant+IDCT as one (N, 64) @ (64, 64) MXU matmul
-            # (Kronecker form; see ops/idct_pallas.py) — XLA ("kron") or
-            # the Pallas kernel ("pallas", TPU only).
-            from . import idct_pallas
-
-            fn = (idct_pallas.idct_kron if idct == "kron"
-                  else idct_pallas.fused_dequant_idct)
-            out = fn(plane.reshape(rows * cols, 64), q)
+        if idct == "kron":
+            # Fused dequant+IDCT as one (N, 64) @ (64, 64) product.
+            out = idct_kron(plane.reshape(rows * cols, 64), q)
             img = blocks_to_plane(out.reshape(rows, cols, 64))
         else:
             idct_fn = idct_exact if idct == "exact" else idct_fast

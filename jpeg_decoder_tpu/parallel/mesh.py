@@ -8,8 +8,10 @@ The decode workload has two natural parallel axes (SURVEY.md §2 table):
   sequence/context parallelism; enabled by DC-predictor resets at RSTn,
   jpeg.cpp:419-425).
 
-On a pod slice, lay ``data`` over DCN (hosts) and ``seg`` over ICI (chips in
-a host) so segment-assembly collectives ride ICI.
+The mesh shape follows the algorithm: the GPUs of one host are joined all
+to all by NVLink, so any (data, seg) split of them costs the same per byte.
+Across hosts, lay ``data`` over hosts and ``seg`` over the devices of a
+host, so segment-assembly collectives stay inside a host.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Multi-host decode: jax.distributed process groups + global meshes.
 
 The reference has no distributed machinery at all (SURVEY.md §2); this
-module provides the TPU-native equivalent: a ``jax.distributed`` runtime
-where each host contributes its local chips to a global ``('data', 'seg')``
-mesh — images shard across hosts (DCN), restart segments across the chips of
-a host (ICI), exactly the layout full_decode_step expects.
+module provides the equivalent: a ``jax.distributed`` runtime where each
+host contributes its local devices to a global ``('data', 'seg')`` mesh —
+images shard across hosts, restart segments across the devices of a host,
+exactly the layout full_decode_step expects.
 
-Multi-process correctness is exercised without a pod via two local CPU
+Multi-process correctness is exercised without a cluster via two local CPU
 processes (tests/test_multihost.py), the standard JAX trick: shard_map code
-is identical on a CPU mesh and a TPU pod slice.
+is identical on a CPU mesh and on a multi-host GPU mesh.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Core data model for the TPU-native JPEG decode engine.
+"""Core data model for the JPEG decode engine.
 
 Design notes
 ------------
 The reference decoder (see /root/reference/jpeg.cpp) keeps decoder state as an
-AoS ``MCU`` union array (reference include/types.hpp:32-67).  The TPU build
+AoS ``MCU`` union array (reference include/types.hpp:32-67).  This decoder
 instead uses a structure-of-arrays layout: per-component dense block planes of
 shape ``(n_blocks_rows, n_block_cols, 64)`` int32, which is the HBM-resident
 "coefficient plane" that conformance bit-exactness is defined on.
@@ -72,7 +72,7 @@ class JPEGError(ValueError):
     """Raised on malformed JPEG streams.
 
     The reference calls ``exit(1)`` on malformed input (25+ sites, e.g.
-    jpeg.cpp:42, 71, 158).  The TPU build raises typed exceptions instead so a
+    jpeg.cpp:42, 71, 158).  This decoder raises typed exceptions instead so a
     bad image fails one image, not the batch.
     """
 
@@ -255,7 +255,7 @@ class FrameHeader:
         """Dense per-component block-grid shape (rows, cols).
 
         The reference scatters all components into one sparse
-        (mcuHeightReal, mcuWidthReal) grid (jpeg.cpp:432); the TPU build uses
+        (mcuHeightReal, mcuWidthReal) grid (jpeg.cpp:432); this decoder uses
         dense per-component planes instead (SoA layout, SURVEY.md §7).
         """
         c = self.components[ci]

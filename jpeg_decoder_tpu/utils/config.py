@@ -14,8 +14,8 @@ import dataclasses
 class DecodeConfig:
     """Knobs for a decode pipeline instance."""
 
-    entropy: str = "auto"   # auto | python | native | speculative | hybrid | jax | pallas
-    idct: str = "fast"         # exact | fast | kron | pallas
+    entropy: str = "auto"   # auto | python | native | speculative | hybrid | jax
+    idct: str = "fast"         # exact | fast | kron
     upsample: str = "fancy"    # nn | fancy
     strict: bool = False       # eager pixel pipeline (bit-exact vs reference)
     orientation: str = "ignore"  # ignore | respect (EXIF auto-rotate)
@@ -26,10 +26,10 @@ class DecodeConfig:
     mesh_shape: tuple[int, int] | None = None
 
     def validate(self) -> "DecodeConfig":
-        if self.entropy not in ("auto", "python", "native", "speculative", "hybrid",
-                                "jax", "pallas"):
+        if self.entropy not in ("auto", "python", "native", "speculative",
+                                "hybrid", "jax"):
             raise ValueError(f"bad entropy backend {self.entropy!r}")
-        if self.idct not in ("exact", "fast", "kron", "pallas"):
+        if self.idct not in ("exact", "fast", "kron"):
             raise ValueError(f"bad idct mode {self.idct!r}")
         if self.upsample not in ("nn", "fancy"):
             raise ValueError(f"bad upsample mode {self.upsample!r}")

@@ -54,8 +54,10 @@ assert dict(mesh.shape) == {"data": nproc, "seg": local_devices}, mesh.shape
 def geometry_workload():
     """Two decode geometries: the corpus DRI image and a synthetic 4:2:0
     DRI stream (different sampling, bpm, segment count)."""
-    yield "img4-4:4:4", open("/root/reference/images/img4.jpg", "rb").read()
+    from tools import corpus
     from tools.encoder import encode
+
+    yield "img4-4:4:4", corpus.read("img4.jpg")
 
     rng = np.random.default_rng(42)
     rgb = rng.integers(0, 256, (96, 144, 3), np.uint8)

@@ -18,8 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "jpeg_decoder_tpu", "entropy", "native_src",
                    "jpeg_entropy.cpp")
 
-_DRIVER = r"""
-import sys, glob
+_SWEEP = r"""
+import sys
 sys.path.insert(0, {repo!r})
 import numpy as np
 from jpeg_decoder_tpu.entropy import native
@@ -59,7 +59,7 @@ def prog_skeletons(hdr):
             # the r5 refine EVENT counter (ABI 19+) both write out_syms.
             native.prog_skeleton_ac(hdr, scan, 7, m, want_syms=True)
 
-for p in sorted(glob.glob('/root/reference/images/*.jpg')):
+for p in {paths!r}:
     hdr = parser.parse(np.frombuffer(open(p, 'rb').read(), np.uint8))
     if hdr.progressive:
         native.decode_progressive(hdr)
@@ -77,8 +77,8 @@ native.skeleton_scan_segments(hdr12, hdr12.scans[0])
 native.emit_prep(hdr12, hdr12.scans[0])
 
 rng = np.random.default_rng(0)
-blob = open('/root/reference/images/img2.jpg', 'rb').read()
-pro = open('/root/reference/images/prograssive-sample-2.jpg', 'rb').read()
+blob = open({img2!r}, 'rb').read()
+pro = open({prog2!r}, 'rb').read()
 for trial in range(80):
     b = bytearray(blob if trial % 2 == 0 else pro)
     mode = trial % 3
@@ -127,8 +127,13 @@ def test_native_decoder_asan_sweep(tmp_path):
                      precision=12, restart_interval=2)
     blob12 = str(tmp_path / "p12.jpg")
     open(blob12, "wb").write(b12)
-    driver = _DRIVER.format(repo=REPO, lib=lib, blob12=blob12)
-    r = subprocess.run([sys.executable, "-c", driver], env=env,
+    from conftest import CORPUS, PROGRESSIVE_CORPUS, corpus_path
+
+    paths = [corpus_path(n) for n in CORPUS + PROGRESSIVE_CORPUS]
+    sweep = _SWEEP.format(repo=REPO, lib=lib, blob12=blob12, paths=paths,
+                            img2=corpus_path("img2.jpg"),
+                            prog2=corpus_path("prograssive-sample-2.jpg"))
+    r = subprocess.run([sys.executable, "-c", sweep], env=env,
                        capture_output=True, text=True, timeout=420)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "ASAN SWEEP OK" in r.stdout

@@ -21,11 +21,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 from encoder import encode  # noqa: E402
 
+from conftest import corpus_path
 from jpeg_decoder_tpu import decode  # noqa: E402
 from jpeg_decoder_tpu.io import parser  # noqa: E402
 from jpeg_decoder_tpu.types import JPEGError  # noqa: E402
 
-CORPUS = "/root/reference/images"
 
 # IDCT + color-arithmetic implementation tolerance vs libjpeg (islow,
 # fixed-point color) — matches the bound used by the other PIL oracles.
@@ -35,7 +35,7 @@ TOL = 5
 def _pil_cmyk_fixture(tmp_path, name="cmyk_photo.jpg"):
     """PIL-written CMYK JPEG (Adobe transform 0) from a corpus photo."""
     path = tmp_path / name
-    Image.open(os.path.join(CORPUS, "img2.jpg")).convert("CMYK").save(
+    Image.open(corpus_path("img2.jpg")).convert("CMYK").save(
         str(path), quality=92)
     return str(path)
 
@@ -122,7 +122,7 @@ def test_cmyk_entropy_backends_agree(tmp_path):
 
 def test_rgb_stored_adobe_transform0():
     rgb = np.array(
-        Image.open(os.path.join(CORPUS, "img2.jpg")).convert("RGB"))[:96, :96]
+        Image.open(corpus_path("img2.jpg")).convert("RGB"))[:96, :96]
     planes = [rgb[..., i].astype(np.float64) for i in range(3)]
     blob, _ = encode(None, raw_planes=planes, samplings=((1, 1),) * 3,
                      quality=95, app14_transform=0)
@@ -137,14 +137,14 @@ def test_rgb_stored_adobe_transform0():
 
 def test_jfif_precedence_over_component_count():
     """JFIF 3-component streams remain YCbCr (libjpeg precedence rule)."""
-    hdr = parser.parse_file(os.path.join(CORPUS, "img.jpg"))
+    hdr = parser.parse_file(corpus_path("img.jpg"))
     assert hdr.saw_jfif
     assert hdr.colorspace == "ycbcr"
 
 
 def test_colorspace_cmyk_rejected_for_3comp():
     with pytest.raises(JPEGError, match="4-component"):
-        decode(os.path.join(CORPUS, "img.jpg"), colorspace="cmyk")
+        decode(corpus_path("img.jpg"), colorspace="cmyk")
 
 
 def test_cmyk_batch_decoder(tmp_path):
@@ -153,13 +153,13 @@ def test_cmyk_batch_decoder(tmp_path):
 
     cmyk_path = _pil_cmyk_fixture(tmp_path)
     blobs = [open(cmyk_path, "rb").read(),
-             open(os.path.join(CORPUS, "img2.jpg"), "rb").read()]
+             open(corpus_path("img2.jpg"), "rb").read()]
     items = BatchDecoder(upsample="fancy").decode(blobs)
     assert all(it.error is None for it in items)
     pil_rgb = np.array(Image.open(cmyk_path).convert("RGB"))
     got = np.asarray(items[0].rgb)
     assert np.abs(got.astype(int) - pil_rgb.astype(int)).max() <= TOL
-    ref = decode(os.path.join(CORPUS, "img2.jpg"), idct="fast",
+    ref = decode(corpus_path("img2.jpg"), idct="fast",
                  upsample="fancy").rgb
     got1 = np.asarray(items[1].rgb)
     assert got1.shape == ref.shape

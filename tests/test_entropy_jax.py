@@ -2,7 +2,7 @@
 
 The v1 vmapped decoder was demoted from the production package to
 tools/entropy_jax_v1.py (superseded by ops/entropy_flat's block-lockstep
-decoder, ~4-24x faster on the v5e); its conformance stays pinned here so
+decoder); its conformance stays pinned here so
 the ablation comparison in tools/entropy_microbench.py remains valid.
 """
 

@@ -85,9 +85,10 @@ def test_rejects_restart_streams():
 
 @pytest.mark.parametrize("name", DRI0)
 @pytest.mark.parametrize("chunk", [1024, 2048, 4096])
-def test_device_splice_succeeds_no_fallback(name, chunk):
-    """The device splice must succeed on every corpus image — the host
-    splice is a correctness net, not the shipped path.  Pins the
+def test_device_splice_succeeds_no_fallback(name, chunk, corpus_sync_window):
+    """With the window the corpus needs (conftest.CORPUS_SYNC_X), the device
+    splice must succeed on every corpus image — the host splice is a
+    correctness net, not the shipped path.  Pins the
     error-restart speculation (an aborted lane byte-aligns and retries
     instead of parking) and the skew-sized record caps; without them most
     corpus images silently fell back to the host."""
@@ -113,7 +114,7 @@ def test_device_splice_succeeds_no_fallback(name, chunk):
 
 
 @pytest.mark.parametrize("name", DRI0)
-def test_spec_batch_pipeline(name):
+def test_spec_batch_pipeline(name, corpus_sync_window):
     """The batched speculative pipeline (one program for B images)
     matches python_ref with every image's device splice succeeding."""
     import jax.numpy as jnp

@@ -7,21 +7,20 @@ The reference parses JFIF APP0 only and skips other APPn segments
 """
 
 import io
-import os
 
 import numpy as np
 import pytest
 from PIL import Image, ImageOps
 
+from conftest import corpus_path
 from jpeg_decoder_tpu import decode
 from jpeg_decoder_tpu.io import parser
 from jpeg_decoder_tpu.models.decoder import apply_exif_orientation
 
-CORPUS = "/root/reference/images"
 
 
 def _fixture(orientation: int) -> bytes:
-    im = Image.open(os.path.join(CORPUS, "img2.jpg")).convert("RGB")
+    im = Image.open(corpus_path("img2.jpg")).convert("RGB")
     im = im.crop((0, 0, 64, 48))
     exif = Image.Exif()
     exif[0x0112] = orientation
@@ -70,7 +69,7 @@ def test_malformed_exif_is_ignored():
 
 
 def test_icc_profile_roundtrip():
-    im = Image.open(os.path.join(CORPUS, "img2.jpg")).convert("RGB")
+    im = Image.open(corpus_path("img2.jpg")).convert("RGB")
     profile = b"\x00" * 16 + b"fake-icc-profile-payload" * 40
     buf = io.BytesIO()
     im.save(buf, format="JPEG", quality=85, icc_profile=profile)
@@ -81,6 +80,6 @@ def test_icc_profile_roundtrip():
 
 
 def test_no_metadata_on_corpus():
-    hdr = parser.parse_file(os.path.join(CORPUS, "img.jpg"))
+    hdr = parser.parse_file(corpus_path("img.jpg"))
     assert hdr.exif_orientation is None
     assert hdr.icc_profile is None

@@ -1,6 +1,6 @@
 """Sharding equivalence (SURVEY.md §4.3-4.4): single-device decode output ==
 N-way segment-sharded output, exactly, on an 8-virtual-device CPU mesh.
-shard_map code is identical on CPU mesh and TPU mesh."""
+shard_map code is identical on a CPU mesh and a GPU mesh."""
 
 import io
 
@@ -97,7 +97,7 @@ def test_batch_pixel_pipeline_dp(mesh24):
         assert np.array_equal(rgb[i], ref)
 
 
-def test_spec_lanes_sharded_across_devices(mesh24):
+def test_spec_lanes_sharded_across_devices(mesh24, corpus_sync_window):
     """VERDICT r2 item 2: DRI=0 speculative chunk lanes are PLACED across
     the mesh (not run on the default device) and stay bit-exact."""
     from jpeg_decoder_tpu import decode as decode_one

@@ -1,6 +1,7 @@
 """Output-sink tests: BMP round-trip, PPM, PNG."""
 
 import numpy as np
+import pytest
 
 from jpeg_decoder_tpu.io import writers
 
@@ -34,3 +35,33 @@ def test_png_roundtrip(tmp_path):
     back = np.asarray(Image.open(p).convert("RGB"))
     assert np.array_equal(back, rgb)
 
+
+
+def test_png_without_pillow_raises_clearly(tmp_path, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    rgb = np.zeros((4, 4, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="Pillow"):
+        writers.write_png(str(tmp_path / "x.png"), rgb)
+    writers.write_image(str(tmp_path / "x.bmp"), rgb)  # needs no Pillow
+
+
+def test_decode_paths_need_no_pillow(monkeypatch):
+    """BatchDecoder and decode_batch_sharded run with Pillow unimportable
+    (the GPU machine's baseline phases must not need it)."""
+    import sys
+
+    from conftest import corpus_path
+    from jpeg_decoder_tpu.models.batch import BatchDecoder
+    from jpeg_decoder_tpu.parallel import mesh as mesh_mod
+    from jpeg_decoder_tpu.parallel.sharded import decode_batch_sharded
+
+    blob = open(corpus_path("img2.jpg"), "rb").read()
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert BatchDecoder().decode([blob])[0].ok
+    import jax
+
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "seg"),
+                              devices=jax.devices()[:1])
+    assert decode_batch_sharded([blob], mesh)[0].ok

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Stage-split profile of the fully device-resident batch decode path
-(parallel/sharded.decode_batch_sharded) on the real TPU.
+(parallel/sharded.decode_batch_sharded) on the device.
 
-VERDICT r2 item 1: the lockstep entropy kernel measures 134 MP/s at 3200
-lanes but the blobs->device-RGB path measured 27 MP/s; this tool times
-each stage so the gap is attributed, not guessed:
+The lockstep entropy kernel alone runs far faster than the whole
+blobs->device-RGB path; this tool times each stage so the gap is
+attributed, not guessed:
 
   parse+prep   host: parser.parse + prepare_spec_batch / prepare_scan
   H2D          device_put of pools/luts (blocking put + sync)
@@ -16,7 +16,6 @@ Usage: timeout 600 python tools/device_path_profile.py [batch_per_image]
 
 from __future__ import annotations
 
-import glob
 import os
 import sys
 import time
@@ -30,9 +29,9 @@ sys.path.insert(0, REPO)
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".cache", "jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from jpeg_decoder_tpu.io import parser
@@ -46,7 +45,9 @@ def main():
     mesh = Mesh(np.array([dev]).reshape(1, 1), ("data", "seg"))
     print("device:", dev)
 
-    paths = sorted(glob.glob("/root/reference/images/img*.jpg"))
+    from tools import corpus
+
+    paths = [corpus.path(n) for n in corpus.BASELINE]
     blobs = [open(p, "rb").read() for p in paths]
 
     # ---- whole-path timing ----
@@ -179,6 +180,4 @@ def main():
 
 
 if __name__ == "__main__":
-    rc = main()
-    sys.stdout.flush()
-    os._exit(rc)
+    sys.exit(main())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Lane-count sweep for the emission hybrid kernel on the real TPU.
+"""Lane-count sweep for the emission hybrid kernel on the device.
 
 The emission buffer total (T x S) is ~constant in S (T ~ total_syms/C),
 so if the per-step cost is loop-overhead-dominated rather than
@@ -24,9 +24,9 @@ sys.path.insert(0, REPO)
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".cache", "jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from jpeg_decoder_tpu.entropy import python_ref
@@ -41,7 +41,9 @@ def main():
     print("device:", dev, " B =", B)
 
     for name in names:
-        path = f"/root/reference/images/{name}"
+        from tools import corpus
+
+        path = corpus.path(name)
         hdr = parser.parse_file(path)
         lay = scan_layout(hdr)
         bc = tuple(ci for ci, c in enumerate(hdr.components)
@@ -87,6 +89,4 @@ def main():
 
 
 if __name__ == "__main__":
-    rc = main()
-    sys.stdout.flush()
-    os._exit(rc)
+    sys.exit(main())

@@ -6,12 +6,11 @@ step from the same 32-bit window — this tool measures whether halving
 steps (at one extra dependent LUT gather per step) wins, and finds the
 usable step-count ratio.
 
-Usage: PYTHONPATH=/root/repo python tools/emit_pair_ab.py [image ...]
+Usage: python tools/emit_pair_ab.py [image ...]
 """
 
 from __future__ import annotations
 
-import glob
 import os
 import sys
 import time
@@ -23,9 +22,9 @@ sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(REPO, ".cache", "jax"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -110,8 +109,9 @@ def bench_one(path, reps=30):
 
 
 def main():
-    paths = sys.argv[1:] or sorted(
-        glob.glob("/root/reference/images/img*.jpg"))
+    from tools import corpus
+
+    paths = sys.argv[1:] or [corpus.path(n) for n in corpus.BASELINE]
     print("device:", jax.devices()[0])
     for p in paths:
         bench_one(p)
@@ -119,4 +119,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    os._exit(0)

@@ -10,7 +10,6 @@ Run: python tools/entropy_ablation.py [--lanes 800] [--trips 3000]
 """
 
 import argparse
-import os
 import sys
 import time
 
@@ -29,11 +28,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", ".cache/jax")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # noqa: BLE001
-        pass
+    from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     S = args.lanes
     T = args.trips
@@ -130,4 +127,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    os._exit(0)

@@ -3,9 +3,8 @@
 Historical v1 of the device Huffman decode: a per-segment decoder (fori
 over MCUs, unrolled blocks, while over AC symbols) vmapped over segments.
 Superseded in the production package by the block-lockstep decoder
-(jpeg_decoder_tpu.ops.entropy_flat) which measured ~4-24x faster on the
-v5e (see docs/ARCHITECTURE.md "three generations"); kept here so the
-ablation story stays reproducible (tools/entropy_microbench.py --v1).
+(jpeg_decoder_tpu.ops.entropy_flat); kept here so the ablation stays
+reproducible (tools/entropy_microbench.py --variants v1).
 
 Output is bit-identical to entropy.python_ref / entropy.native (asserted
 in tests/test_entropy_jax.py).

@@ -61,10 +61,15 @@ def balanced_edges(ev: np.ndarray, S: int) -> np.ndarray:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("image", nargs="?",
-                    default="/root/reference/images/prograssive-sample.jpg")
+    ap.add_argument("image", nargs="?", default=None,
+                    help="progressive JPEG (default: the seeded corpus's "
+                         "12 MP progressive frame)")
     ap.add_argument("--lanes", type=int, default=512)
     args = ap.parse_args()
+    if args.image is None:
+        from tools import corpus
+
+        args.image = corpus.path("prograssive-sample.jpg")
 
     from jpeg_decoder_tpu.io import parser
     from jpeg_decoder_tpu.entropy import native

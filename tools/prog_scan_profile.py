@@ -29,18 +29,23 @@ sys.path.insert(0, REPO)
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("image", nargs="?",
-                    default="/root/reference/images/prograssive-sample.jpg")
+    ap.add_argument("image", nargs="?", default=None,
+                    help="progressive JPEG (default: the seeded corpus's "
+                         "12 MP progressive frame)")
     ap.add_argument("--reps", type=int, default=4)
     ap.add_argument("--lanes", type=int,
                     default=int(os.environ.get("JD_PROG_LANES", "512")))
     args = ap.parse_args()
+    if args.image is None:
+        from tools import corpus
+
+        args.image = corpus.path("prograssive-sample.jpg")
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".cache", "jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from jpeg_decoder_tpu.io import parser
@@ -135,7 +140,6 @@ def main():
     host_total = sum(r["host_ms"] for r in scan_rows)
     print(f"device total {total_dev:.1f} ms   host skeleton total "
           f"{host_total:.1f} ms")
-    os._exit(0)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,9 @@ from jpeg_decoder_tpu.parallel import mesh as mesh_mod, sharded  # noqa: E402
 
 
 def make_workload():
-    rgb = np.asarray(Image.open("/root/reference/images/img5.jpg")
+    from tools import corpus
+
+    rgb = np.asarray(Image.open(corpus.path("img5.jpg"))
                      .convert("RGB"))
     buf = io.BytesIO()
     Image.fromarray(rgb).save(buf, "JPEG", quality=85, subsampling=2,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Per-step cost of lax.scan kernels vs gather count and lane count.
 
-The progressive per-scan profile shows ~8-50us per kernel iteration on
-this TPU — far above ALU cost, pointing at the per-lane gathers.  This
-tool measures a minimal scan step with k gathers of (S,) indices, with
+The progressive per-scan profile (tools/prog_scan_profile.py) gives the
+cost of one kernel iteration; when it is far above ALU cost, the per-lane
+gathers are the suspects.  This tool measures a minimal scan step with k gathers of (S,) indices, with
 and without an (S, 64) row gather and an (S, 64) ys emission, so the
 emission refine kernel's per-event budget is designed against data.
 
@@ -26,9 +26,9 @@ sys.path.insert(0, REPO)
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".cache", "jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     T = 1024
@@ -90,7 +90,6 @@ def main():
              timeit(S, 2, True, True)]
         print(f"{S:>6} {r[0]:7.2f} {r[1]:7.2f} {r[2]:7.2f} "
               f"{r[3]:8.2f} {r[4]:12.2f}", flush=True)
-    os._exit(0)
 
 
 if __name__ == "__main__":

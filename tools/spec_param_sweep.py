@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Tune the speculative-chunk parameters (chunk_bytes, ovf_bytes,
-max_chunks, cap slack) for the device DRI=0 pipeline on the real TPU.
+max_chunks, cap slack) for the device DRI=0 pipeline on the device.
 
 The lockstep decode's wall time is max-over-lanes trip count x per-iter
 cost, so the knobs trade off:
@@ -19,7 +19,6 @@ Usage: timeout 1200 python tools/spec_param_sweep.py
 
 from __future__ import annotations
 
-import glob
 import os
 import sys
 import time
@@ -33,9 +32,9 @@ sys.path.insert(0, REPO)
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".cache", "jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
@@ -50,7 +49,9 @@ def main():
     rep = int(os.environ.get("SWEEP_B", "8"))
 
     # DRI=0 corpus images only (5 of 6).
-    paths = [p for p in sorted(glob.glob("/root/reference/images/img*.jpg"))]
+    from tools import corpus
+
+    paths = [corpus.path(n) for n in corpus.BASELINE]
     blobs = {os.path.basename(p): open(p, "rb").read() for p in paths}
 
     configs = [
@@ -111,6 +112,4 @@ def main():
 
 
 if __name__ == "__main__":
-    rc = main()
-    sys.stdout.flush()
-    os._exit(rc)
+    sys.exit(main())

@@ -14,7 +14,6 @@ trip count vs the cap bound.
 
 from __future__ import annotations
 
-import glob
 import os
 import sys
 import time
@@ -28,9 +27,9 @@ sys.path.insert(0, REPO)
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".cache", "jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from jpeg_decoder_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from jpeg_decoder_tpu.io import parser
@@ -38,7 +37,9 @@ def main():
     from jpeg_decoder_tpu.ops import entropy_flat, entropy_spec
 
     for name in ("img5.jpg", "img.jpg", "img3.jpg"):
-        blob = open(f"/root/reference/images/{name}", "rb").read()
+        from tools import corpus
+
+        blob = corpus.read(name)
         hdr = parser.parse(blob)
         lay = scan_layout(hdr)
         n_bytes = len(hdr.scans[0].data)
@@ -113,6 +114,4 @@ def main():
 
 
 if __name__ == "__main__":
-    rc = main()
-    sys.stdout.flush()
-    os._exit(rc)
+    sys.exit(main())
